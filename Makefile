@@ -1,7 +1,7 @@
 # Build tooling (reference parity: the upstream root Makefile that built the
 # C solver and ran tests — SURVEY.md §2 "Build tooling").
 
-.PHONY: all lib test test-all bench docs clean
+.PHONY: all lib test test-all test-gpu smoke docs clean
 
 all: lib
 
@@ -9,14 +9,19 @@ lib:
 	$(MAKE) -C csrc
 
 test: lib
-	python -m pytest tests/ -q -m "not slowtest"
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q -m "not slowtest"
 
 # includes slow integration fits (parameter recovery / W1 parity)
 test-all: lib
-	python -m pytest tests/ -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q
 
-bench: lib
-	python bench.py
+# on a machine with an NVIDIA GPU: the tests marked gpu (they skip on CPU)
+test-gpu: lib
+	TCGAN_TEST_PLATFORM=gpu python -m pytest tests/ -q -m gpu
+
+# on a machine with an NVIDIA GPU: the main path end to end, one card
+smoke: lib
+	python chip_smoke.py
 
 # regenerate docs/cli_reference.md from the live argparse parsers
 docs:

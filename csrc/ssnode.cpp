@@ -6,11 +6,11 @@
 // with per-sample convergence (max-abs residual < atol) and divergence
 // (rate ceiling) detection.
 //
-// Role in this repo: (a) the reference-equivalent CPU path that bench.py
-// measures the TPU path against, and (b) a third implementation for the
-// cross-implementation consistency tests (SURVEY.md §4). The TPU production
-// path is ops/fixed_point.py + the Pallas kernel; this file is NOT on the
-// TPU execution path.
+// Role in this repo: (a) the reference-equivalent float64 CPU solver that
+// chip_smoke.py checks the GPU paths against, and (b) a third
+// implementation for the cross-implementation consistency tests
+// (SURVEY.md §4). The production path is ops/fixed_point.py + the Pallas
+// kernel; this file is NOT on the device execution path.
 //
 // Build: `make -C csrc` -> libssnode.so, loaded via ctypes
 // (tcgan_tpu/ops/native.py).

@@ -71,17 +71,8 @@ def main():
              for k in ("J", "D", "S")}
 
     # frozen data moments from the live checkpoint (identical witness)
-    import orbax.checkpoint as ocp
-    from pathlib import Path
-    ckpt_root = Path(f"{args.run}/ckpt").resolve()
-    latest = max(int(p.name) for p in ckpt_root.iterdir() if p.name.isdigit())
-    ckptr = ocp.PyTreeCheckpointer()
-    meta = ckptr.metadata(ckpt_root / str(latest) / "default")
-    restore_args = jax.tree.map(
-        lambda _: ocp.RestoreArgs(restore_type=np.ndarray),
-        meta.item_metadata.tree)
-    raw = ckptr.restore(ckpt_root / str(latest) / "default",
-                        args=ocp.args.PyTreeRestore(restore_args=restore_args))
+    from tcgan_tpu.train.checkpoint import CheckpointManager
+    raw = CheckpointManager(f"{args.run}/ckpt").load_tree()
     data_mean = jnp.asarray(raw["data_mean"])
     data_second = jnp.asarray(raw["data_second"])
     eps = 1e-2

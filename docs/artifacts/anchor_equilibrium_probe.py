@@ -59,7 +59,6 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    import orbax.checkpoint as ocp
 
     from tcgan_tpu.models import critic as critic_lib
     from tcgan_tpu.models import generator as gen_lib
@@ -67,20 +66,19 @@ def main():
     from tcgan_tpu.models.moments import survivor_chain
     from tcgan_tpu.models.wgan import WGANConfig, fake_sample_weights
     from tcgan_tpu.run import common
+    from tcgan_tpu.train.checkpoint import CheckpointManager
 
     info = json.load(open(f"{args.run}/info.json"))["config"]
-    # XLA solver on CPU: the run's Pallas backend would execute in
-    # Mosaic INTERPRET mode off-TPU (ops/fixed_point.py:77) — 100x+
-    # slower; kernel-vs-XLA parity at the same atol is bench-gated, so
-    # the gradients are the same.
+    # XLA solver: the run's Pallas kernel is compiled for the GPU only;
+    # kernel-vs-XLA parity at the same atol is checked by chip_smoke.py,
+    # so the gradients are the same.
     gen_cfg = common.generator_config_from_args(
         SimpleNamespace(**{**info, "solver_backend": "xla"}),
         solver="ift")
 
     # --- full endpoint state from the latest checkpoint ---
-    root = Path(f"{args.run}/ckpt").resolve()
-    steps_avail = sorted(int(p.name) for p in root.iterdir()
-                         if p.name.isdigit())
+    mgr = CheckpointManager(Path(f"{args.run}/ckpt"))
+    steps_avail = mgr.steps()
     if args.step > 0:
         if args.step not in steps_avail:
             raise SystemExit(f"--step {args.step} not in checkpoints "
@@ -88,14 +86,7 @@ def main():
         latest = args.step
     else:
         latest = steps_avail[-1]
-    ckptr = ocp.PyTreeCheckpointer()
-    meta = ckptr.metadata(root / str(latest) / "default")
-    restore_args = jax.tree.map(
-        lambda _: ocp.RestoreArgs(restore_type=np.ndarray),
-        meta.item_metadata.tree)
-    raw = ckptr.restore(root / str(latest) / "default",
-                        args=ocp.args.PyTreeRestore(
-                            restore_args=restore_args))
+    raw = mgr.load_tree(latest)
     gen_params = {k: jnp.asarray(raw["gen_params"][k]) for k in "JDS"}
     critic_params = {k: jnp.asarray(v)
                      for k, v in raw["critic_params"].items()}

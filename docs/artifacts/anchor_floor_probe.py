@@ -70,22 +70,11 @@ def main():
     truth = {k: np.log(np.array(info[f"true_{k}"], dtype=float).reshape(2, 2))
              for k in ("J", "D", "S")}
 
-    # The run's own data moments: read them out of the orbax checkpoint
+    # The run's own data moments: read them out of the latest checkpoint
     # (state.data_mean/data_second — exact, and avoids regenerating the
     # 4096-sample truth set on CPU, which is minutes of solver time).
-    import orbax.checkpoint as ocp
-    from pathlib import Path
-    ckpt_root = Path(f"{args.run}/ckpt").resolve()
-    latest = max(int(p.name) for p in ckpt_root.iterdir() if p.name.isdigit())
-    ckptr = ocp.PyTreeCheckpointer()
-    # force plain-numpy restore: the checkpoint was written on TPU and its
-    # recorded shardings do not exist in a CPU-only probe process
-    meta = ckptr.metadata(ckpt_root / str(latest) / "default")
-    tree = meta.item_metadata.tree
-    restore_args = jax.tree.map(
-        lambda _: ocp.RestoreArgs(restore_type=np.ndarray), tree)
-    raw = ckptr.restore(ckpt_root / str(latest) / "default",
-                        args=ocp.args.PyTreeRestore(restore_args=restore_args))
+    from tcgan_tpu.train.checkpoint import CheckpointManager
+    raw = CheckpointManager(f"{args.run}/ckpt").load_tree()
     data_mean = np.asarray(raw["data_mean"])
     data_second = np.asarray(raw["data_second"])
     ema_mean = np.asarray(raw["mom_ema_mean"])

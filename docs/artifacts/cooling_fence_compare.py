@@ -9,7 +9,7 @@ J/D tail is at or below the hot arm's (the tiny-battery counter-result
 showed cooling HURTS when moments under-identify J; this is the
 rich-battery test that must run on chip, per ROUND5 §1).
 
-Host-side only (reads CSVs; no TPU).
+Host-side only (reads CSVs; no device).
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Prints J/D/S recovery errors vs truth along the generator.csv trajectory
 plus the latest learning.jsonl observables (anchor residual, circuit
 yield, critic accuracy). Pure host-side CSV reading — safe to run while
-the TPU job is live.
+the training job is live.
 
 Usage: python docs/artifacts/monitor_rec13anchor2.py [run_dir]
 """

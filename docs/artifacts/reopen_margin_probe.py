@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Round-5 on-device validation of pallas_reopen_margin (the wgan_step
+"""On-device validation of pallas_reopen_margin (the wgan_step
 cost recovery — BASELINE.md round-5 root cause):
 
 1. FLAG PARITY on a divergence-heavy batch: margin=2.0 vs margin=0 vs
@@ -8,7 +8,7 @@ cost recovery — BASELINE.md round-5 root cause):
 2. COST: the bench's exact WGAN-GP step config (32%-divergent fake
    draws) timed with the marginal-cost methodology at margin 0 vs 2.0.
 
-Run post-flagship (one TPU process at a time).
+Run alone: one JAX process per card.
 """
 
 import os
@@ -51,10 +51,10 @@ W = weights.build_weight(J, D, S, z, x)
 ref = jax.jit(lambda w: fixed_point.solve_fixed_point(
     cfg, w, I, check_every=16))(W)
 r0 = jax.jit(lambda w: solve_fixed_point_pallas(
-    cfg, w, I, block_b=16, check_every=32))(W)
+    cfg, w, I, check_every=32))(W)
 cfg_m = dataclasses.replace(cfg, pallas_reopen_margin=2.0)
 rm = jax.jit(lambda w: solve_fixed_point_pallas(
-    cfg_m, w, I, block_b=16, check_every=32))(W)
+    cfg_m, w, I, check_every=32))(W)
 jax.block_until_ready(rm.r)
 
 div_ref = np.asarray(ref.diverged)
@@ -78,7 +78,7 @@ out["parity"] = {
 
 # --- 2. wgan step cost, margin 0 vs 2 -----------------------------------
 def wgan_ms(margin):
-    ssn = dataclasses.replace(cfg, backend="pallas", pallas_block_b=16,
+    ssn = dataclasses.replace(cfg, backend="pallas",
                               check_every=32,
                               pallas_reopen_margin=margin)
     gen_cfg = GeneratorConfig(ssn=ssn, sample_sites=1, solver="ift")

@@ -69,9 +69,7 @@ def generate():
     from tcgan_tpu.ops.ssn import SSNConfig
 
     cfg = GeneratorConfig(
-        ssn=SSNConfig(N=51, max_iter=8000, atol=1e-4,
-                      backend="pallas" if jax.default_backend() == "tpu"
-                      else "xla", pallas_block_b=16, check_every=32),
+        ssn=SSNConfig(N=51, max_iter=8000, atol=1e-4, check_every=32),
         contrasts=(5.0, 10.0, 13.0), sample_sites=4,
         include_inhibitory_neurons=True, track_offset_identity=True,
         solver="ift")

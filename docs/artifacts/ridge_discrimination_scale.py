@@ -3,8 +3,8 @@ ridge_discrimination.py).
 
 That probe showed the rec13r ridge stall (J err 37%) is invisible to ANY
 sample-trained critic at the reference-era dataset size (4096/side). The
-witness-estimation floor scales ~sqrt(dim / M), so on TPU — where truth
-samples cost ~30 us each instead of ~1 s on a workstation core — the
+witness-estimation floor scales ~sqrt(dim / M), so on an accelerator —
+where truth samples cost far less than on a workstation core — the
 dataset size is a free parameter. This probe measures held-out
 discrimination accuracy vs M for two ridge displacements:
 
@@ -12,12 +12,12 @@ discrimination accuracy vs M for two ridge displacements:
   - "mid":   halfway to truth in log-space (J ~ +17%) — the signal the
     critic must still see for a descending GAN to KEEP descending.
 
-If accuracy rises clearly above chance at M ~ 10^5, a cWGAN with a
-TPU-scale `--truth-samples` has learnable witness signal all the way
+If accuracy rises clearly above chance at M ~ 10^5, a cWGAN with an
+accelerator-scale `--truth-samples` has learnable witness signal all the way
 down the ridge, and the GAN-recovery run is justified.
 
 Usage: python docs/artifacts/ridge_discrimination_scale.py [--gen-only|--cpu]
-  --gen-only: generate the sample sets (TPU, ~10 min) and exit;
+  --gen-only: generate the sample sets (on the accelerator) and exit;
   --cpu:      force the CPU backend (probe training while the chip is
               busy with a science run; training is scan-fused so it does
               not pay per-step dispatch).
@@ -69,11 +69,8 @@ def mid_params():
 
 
 def make_cfg():
-    on_tpu = jax.default_backend() == "tpu"
     return GeneratorConfig(
-        ssn=SSNConfig(N=51, max_iter=8000, atol=1e-4,
-                      backend="pallas" if on_tpu else "xla",
-                      pallas_block_b=16, check_every=32),
+        ssn=SSNConfig(N=51, max_iter=8000, atol=1e-4, check_every=32),
         contrasts=(5.0, 10.0, 13.0), sample_sites=4,
         include_inhibitory_neurons=True, track_offset_identity=True,
         solver="ift")

@@ -28,8 +28,7 @@ D = np.array([[0.10, 0.08], [0.10, 0.08]], dtype=np.float32)
 S = np.array([[0.25, 0.10], [0.25, 0.10]], dtype=np.float32)
 
 gen_cfg = GeneratorConfig(
-    ssn=dataclasses.replace(cfg, backend="pallas",
-                            pallas_block_b=16, check_every=32),
+    ssn=dataclasses.replace(cfg, backend="pallas", check_every=32),
     sample_sites=1, solver="ift",
 )
 wcfg = wgan_lib.WGANConfig(gen=gen_cfg, batch_size=32, n_critic=5,

@@ -1,4 +1,5 @@
-"""tcgan_tpu — TPU-native framework with the capabilities of ahmadianlab/tc-gan.
+"""tcgan_tpu — JAX framework with the capabilities of ahmadianlab/tc-gan,
+running on an NVIDIA GPU (one H100, or several over a device mesh).
 
 Fits stabilized supralinear network (SSN) circuit models — recurrent rate
 networks with dynamics ``tau * dr/dt = -r + f(W @ r + I_ext)``, where
@@ -16,9 +17,9 @@ there):
 - ``tcgan_tpu.cli``      ~ ``tc_gan/run/``
 - ``tcgan_tpu.data``     ~ dataset loading / fake-truth generation
 - ``tcgan_tpu.analysis`` ~ ``tc_gan/loaders.py``, ``tc_gan/analyzers/``
-- ``tcgan_tpu.parallel`` — TPU-only: ICI mesh sharding (no reference analog;
-  the reference is single-process OpenMP)
-- ``tcgan_tpu.ops.pallas`` ~ ``tc_gan/ext/`` (native solver; here a fused TPU
+- ``tcgan_tpu.parallel`` — device-mesh sharding (no reference analog; the
+  reference is single-process OpenMP)
+- ``tcgan_tpu.ops.pallas`` ~ ``tc_gan/ext/`` (native solver; here a fused GPU
   kernel instead of OpenMP C)
 """
 

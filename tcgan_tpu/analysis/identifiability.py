@@ -153,7 +153,7 @@ def moment_jacobian(gen_cfg, J, D, S, n_circuits: int = 256, seed: int = 0,
     backward passes are batched ``chunk`` output-cotangents at a time: a
     full ``jacrev`` over a rich readout (hundreds of moments) vmaps
     hundreds of adjoint solves into one program, which can exhaust device
-    memory (observed as a TPU worker crash at 384 outputs x 256 circuits).
+    memory (observed as a worker crash at 384 outputs x 256 circuits).
     Returns (jacobian, moments) as host NumPy arrays.
     """
     import jax
@@ -432,7 +432,7 @@ def make_parser():
                         "dataset of this many tuning curves (FIRST battery)")
     p.add_argument("--device", choices=("default", "cpu"), default="default",
                    help="cpu: force the host CPU backend (the analysis is "
-                        "small enough for CPU and this frees the TPU)")
+                        "small enough for CPU and this frees the GPU)")
     return p
 
 
@@ -443,8 +443,7 @@ def main(argv=None) -> int:
     if args.device == "cpu":
         import jax
 
-        # Must happen before the first device op; the env-var route is
-        # ignored by some TPU plugins (tests/conftest.py note).
+        # Must happen before the first device op.
         jax.config.update("jax_platforms", "cpu")
     gen_cfg = common.generator_config_from_args(args, solver="ift")
     J, D, S = common.as22(args.J), common.as22(args.D), common.as22(args.S)

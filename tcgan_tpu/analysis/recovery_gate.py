@@ -1,8 +1,7 @@
 """Recovery-gate check: has a run held J/D within a tolerance of truth?
 
-Exit-code CLI for unattended chip-time orchestration (the pattern behind
-``docs/artifacts/tpu_queue.sh`` / ``flagship_watchdog.sh``, whose first
-versions embedded this logic as inline python): exit 0 when the run's
+Exit-code CLI for unattended run orchestration (a job queue can chain on
+it): exit 0 when the run's
 generator trajectory has BOTH J and D mean-relative errors at or below
 ``--gate`` across a trailing window past ``--min-step``, exit 1
 otherwise (including "run too short" and "no generator.csv"). The

@@ -172,7 +172,7 @@ def make_parser():
     p.add_argument("--dtype", choices=("float32", "float64"),
                    default="float32")
     p.add_argument("--device", choices=("default", "cpu"), default="default",
-                   help="cpu: force the host CPU backend (frees the TPU)")
+                   help="cpu: force the host CPU backend (frees the GPU)")
     p.add_argument("--output", "-o", type=str, default=None,
                    help="write the JSON report here as well as stdout")
     return p

@@ -1,7 +1,7 @@
 """Ensemble (multi-start) GAN fitting: K independent WGAN fits in ONE
 jitted program via ``jax.vmap`` over the train state.
 
-Why this exists, and why it is TPU-native: the SSN generator is tiny (12
+Why this exists: the SSN generator is tiny (12
 parameters) and a single fit under-utilizes a chip at small batch. ``vmap``
 over K member states batches every solver call and critic matmul K-fold —
 one compiled program, no host loop over members — so multi-start fitting

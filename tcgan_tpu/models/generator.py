@@ -18,9 +18,9 @@ Reference parity: generator assembly inside ``tc_gan/networks/bptt_gan.py``
 - solver choice: implicit-diff fixed point (configs C2/C4/C5) or unrolled
   BPTT scan (config C3).
 
-TPU notes: everything here is one traced graph — z sampling, W build, the
-while-loop solve, and the probe gather all fuse under jit; batch dim shards
-over the ICI mesh (tcgan_tpu.parallel).
+Everything here is one traced graph — z sampling, W build, the while-loop
+solve, and the probe gather all fuse under jit; the batch dim shards over
+the device mesh (tcgan_tpu.parallel).
 """
 
 from __future__ import annotations
@@ -186,7 +186,7 @@ def sample_tuning_curves(
         z = weights.sample_z(key, (batch,), cfg.ssn.N, dtype=cfg.dtype)
     if cfg.mesh_axis or cfg.model_axis:
         # Steer jit's auto-partitioning: batch axis -> data-parallel shards,
-        # optional 2N axis -> tensor-parallel shards (riding ICI).
+        # optional 2N axis -> tensor-parallel shards.
         from jax.sharding import PartitionSpec as P
 
         z = jax.lax.with_sharding_constraint(

@@ -6,7 +6,7 @@ two-timescale Adam [PAPERS.md: TTUR], per-step schedule of
 ``critic_iters`` discriminator updates then one generator update, and the
 rate penalty on runaway circuits.
 
-TPU-first deviations from the reference's structure (behavior preserved):
+Deviations from the reference's structure (behavior preserved):
 
 - The reference compiled separate ``train_discriminator`` /
   ``train_generator`` Theano functions and looped in Python. Here the WHOLE

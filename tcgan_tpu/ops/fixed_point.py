@@ -9,12 +9,12 @@ solver in ``tc_gan/ext/`` (SURVEY.md §3.4). Semantics preserved:
 - per-sample convergence/divergence flags are first-class outputs — the GAN
   layer penalizes/rejects flagged samples (SURVEY.md §5.3).
 
-TPU-first design: there is no per-sample early exit on a SIMD machine, so
-the whole batch runs one `lax.while_loop` on an "any sample still active"
-predicate with masked updates (work-inefficient per sample, SIMD-right
-overall; resolved samples are frozen via `jnp.where` so their values don't
-drift). The residual check happens every ``check_every`` iterations to keep
-the loop body a pure fused matmul+elementwise block between checks.
+Lockstep design: the whole batch runs one `lax.while_loop` on an "any
+sample still active" predicate with masked updates (work-inefficient per
+sample, but one batched matmul per substep; resolved samples are frozen
+via `jnp.where` so their values don't drift). The residual check happens
+every ``check_every`` iterations to keep the loop body a pure fused
+matmul+elementwise block between checks.
 
 This plain-XLA path is the semantic reference; the fused Pallas kernel in
 ``tcgan_tpu.ops.pallas`` implements the same contract and is cross-checked
@@ -54,27 +54,34 @@ def solve_any(cfg: SSNConfig, W: jnp.ndarray, I_ext: jnp.ndarray
 
     Uses the fused Pallas kernel when ``cfg.backend == "pallas"`` and the
     layout matches its contract (one batch dim, shared stimulus battery);
-    otherwise the plain-XLA while_loop path.
+    otherwise the plain-XLA while_loop path. The kernel is compiled for
+    the GPU and never interpreted here: off the GPU, or under a
+    multi-device mesh (a ``pallas_call`` is opaque to automatic
+    partitioning, so it would replicate the whole batch on every
+    device), choosing it is an error.
 
     Dtype contract: the Pallas path computes and returns float32 rates
-    regardless of input dtype (the kernel is f32-resident by design —
-    TPU VMEM/MXU); the XLA path preserves ``W.dtype``. Cross-backend
-    f64 parity checks must therefore compare through the XLA or native
-    solver, not the kernel.
+    regardless of input dtype; the XLA path preserves ``W.dtype``.
+    Cross-backend f64 parity checks must therefore compare through the
+    XLA or native solver, not the kernel.
     """
     if cfg.backend == "pallas" and W.ndim == 3 and I_ext.ndim == 2:
-        import jax
-
         from tcgan_tpu.ops.pallas import solve_fixed_point_pallas
 
+        mesh = jax.sharding.get_abstract_mesh()
+        if not mesh.empty and mesh.size > 1:
+            raise ValueError(
+                "the pallas solver backend does not run under a "
+                f"{mesh.size}-device mesh (--parallel mesh): a pallas_call "
+                "is opaque to automatic partitioning and would replicate "
+                "the whole batch on every device; use the xla solver "
+                "backend")
         return solve_fixed_point_pallas(
-            cfg, W, I_ext, block_b=cfg.pallas_block_b,
+            cfg, W, I_ext,
             check_every=max(cfg.check_every, 1),
             two_phase=cfg.pallas_two_phase,
             refine=cfg.pallas_refine,
             accel=(cfg.accel == "anderson"),
-            # off-TPU (tests, CPU smoke) the kernel runs interpreted
-            interpret=jax.default_backend() != "tpu",
         )
     return solve_fixed_point(cfg, W, I_ext,
                              check_every=max(cfg.check_every, 1))

@@ -22,8 +22,8 @@ PAPERS.md):
   adjoint system, λ <- λ + (dt/tau)(-λ + (∂F/∂r)^T λ + ḡ).  Converges under
   the same spectral condition that makes the forward Euler dynamics stable
   (the adjoint matrix is the transpose, same spectrum), costs one matvec per
-  step, and needs O(1) memory.  TPU-first: identical compute shape to the
-  forward solve, so it reuses the MXU-friendly batched matmul layout.
+  step, and needs O(1) memory.  Identical compute shape to the forward
+  solve, so it reuses the same batched matmul layout.
 - ``"direct"``: batched dense solve of (I - diag(f'(u*)) W)^T λ = ḡ via
   ``jnp.linalg.solve``.  Exact; O(S · (2N)^3) and O(S · (2N)^2) memory per
   sample — for small/medium N and for testing the iterative path.

@@ -4,7 +4,7 @@ Reference parity: the ctypes loading of ``libssnode`` in
 ``tc_gan/ssnode.py`` (SURVEY.md §2 "ssnode": "Python wrapper over the C
 solver"). Auto-builds the shared library on first use if a toolchain is
 available; callers should treat availability as optional
-(:func:`available`) — the TPU path never needs it.
+(:func:`available`) — the device path never needs it.
 """
 
 from __future__ import annotations
@@ -34,6 +34,10 @@ def _ensure_built() -> bool:
     try:
         subprocess.run(["make", "-C", str(_CSRC)], check=True,
                        capture_output=True, text=True, timeout=300)
+        return _LIB_PATH.exists()
+    except subprocess.CalledProcessError as e:  # pragma: no cover
+        _load_error = (f"build failed: {e}; "
+                       f"{(e.stdout or '')[-300:]} {(e.stderr or '')[-600:]}")
         return _LIB_PATH.exists()
     except Exception as e:  # pragma: no cover
         if _LIB_PATH.exists():

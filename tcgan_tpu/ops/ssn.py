@@ -15,13 +15,13 @@ and the C loop of ``tc_gan/ext/`` (native path) — one JAX implementation
 serves both (SURVEY.md §4's cross-implementation pattern collapses to
 cross-checking this step against the Pallas kernel and the C++ CPU baseline).
 
-Shape convention (TPU-first): the stimulus-condition axis S is kept as a
-leading matrix dimension so the recurrent drive is a real matmul
+Shape convention: the stimulus-condition axis S is kept as a leading
+matrix dimension so the recurrent drive is a real matmul
 
     u = r @ W^T + I,   r: (..., S, 2N), W: (..., 2N, 2N)
 
-(M = S conditions, K = N' = 2N, N = 2N) instead of S separate matvecs —
-this is what puts the inner loop on the MXU.
+(M = S conditions, K = N' = 2N, N = 2N) instead of S separate matvecs,
+which is what puts the inner loop on the matrix units.
 """
 
 from __future__ import annotations
@@ -69,33 +69,29 @@ class SSNConfig:
     rate_stop_at: float = 200.0  # divergence ceiling on any rate
     seqlen: int = 4000  # BPTT path: number of unrolled Euler steps
     # Forward-solver backend: "xla" = lockstep batched while_loop;
-    # "pallas" = fused VMEM-resident kernel with per-tile early exit
-    # (TPU only; falls back to xla for layouts the kernel doesn't cover).
+    # "pallas" = fused GPU kernel, one circuit per program with per-circuit
+    # early exit (ops/pallas; needs an NVIDIA GPU and one circuit's W
+    # within a block's shared memory).
     backend: str = "xla"
-    pallas_block_b: int = 8  # circuits per kernel tile
-    # Two-phase precision: fast-pass matmul loop to a coarse residual, then
-    # a Precision.HIGHEST tail to the real atol.
+    # Two-phase precision: TF32 matmul loop to a coarse residual, then an
+    # f32-accurate tail to the real atol.
     pallas_two_phase: bool = True
     # Iterative-refinement tail: phase 2 iterates on the correction
-    # e = r - r_ref with single-pass DEFAULT matmuls around a HIGHEST
-    # anchor u_ref = W r_ref + I (re-anchored each check chunk). Same
-    # fixed point / residual criterion; ~2x measured end-to-end speedup
-    # (the HIGHEST tail was the wall-time bottleneck).
+    # e = r - r_ref with TF32 matmuls around an f32 (Precision.HIGHEST)
+    # anchor u_ref = W r_ref + I, re-anchored each check chunk. Same
+    # fixed point and residual criterion as a loop of f32 matmuls.
     pallas_refine: bool = True
-    # Phase-2 divergence-reopen margin (two-phase kernel only). The
-    # round-3 correctness fix reopens phase-1-diverged rows in the
-    # HIGHEST-precision phase 2 because a bf16-pass peak test near
+    # Phase-2 divergence-reopen margin (two-phase kernel only). Phase 2
+    # reopens phase-1-diverged rows because a TF32 peak test near
     # rate_stop_at can falsely flag valid near-critical circuits (its
-    # ~0.4% matmul noise is amplified ~n-fold through f(u)=k*u^n — a few
-    # per cent at the threshold, never 2x). But reopening EVERY diverged
-    # row lets oscillatory true divergers burn the remaining phase-2
-    # budget, costing ~2.4x per step on divergence-heavy workloads
-    # (BASELINE.md round-5 wgan_step root cause). With margin m > 0,
-    # rows whose phase-1 rates are pinned ABOVE m*rate_stop_at stay
-    # flagged — unreachable by precision noise, so the false-positive
-    # band [stop_at, m*stop_at) still gets its full-precision retrial
-    # while hard divergers keep their flag. 0 = reopen all (round-3/4
-    # behavior).
+    # ~1e-3 relative matmul error is amplified ~n-fold through
+    # f(u)=k*u^n — well under a per cent at the threshold, never 2x).
+    # But reopening EVERY diverged row lets oscillatory true divergers
+    # burn the remaining phase-2 budget on divergence-heavy batches. With
+    # margin m > 0, rows whose phase-1 rates are pinned ABOVE
+    # m*rate_stop_at stay flagged — unreachable by precision noise, so
+    # the false-positive band [stop_at, m*stop_at) still gets its f32
+    # retrial while hard divergers keep their flag. 0 = reopen all.
     pallas_reopen_margin: float = 0.0
     check_every: int = 1  # convergence-check stride (both backends)
     # Time stepper: "euler" (reference-faithful forward Euler,
@@ -182,11 +178,12 @@ class SSNConfig:
 def recurrent_drive(W: jnp.ndarray, r: jnp.ndarray, I_ext: jnp.ndarray) -> jnp.ndarray:
     """u = r @ W^T + I_ext with r: (..., S, 2N), W: (..., 2N, 2N).
 
-    Precision.HIGHEST is load-bearing: the TPU MXU's default bf16 passes
-    floor the Euler residual around 1e-2-relative, so tight atol never
-    converges (measured: 21% of samples stuck at atol=1e-4 under default
-    precision, 100% convergent under HIGHEST, identical to the f64 CPU
-    solver's iteration counts).
+    Precision.HIGHEST is load-bearing: it asks for full f32 (IEEE on an
+    NVIDIA GPU) instead of a reduced-precision default (TF32 on the GPU's
+    tensor cores, 10 mantissa bits), whose rounding floors the Euler
+    residual near 1e-3-relative, so a tight atol would not converge.
+    With HIGHEST the solve matches the f64 CPU solver's iteration counts
+    (tests/test_native.py).
     """
     import jax
 

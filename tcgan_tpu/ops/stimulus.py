@@ -12,7 +12,7 @@ applied identically to the E and I neurons at each site.
 
 The battery enumerates the full bandwidth x contrast grid once (static
 shapes; the stimulus dimension is folded into the solver's matmul M-axis,
-which is what makes the batched solve MXU-friendly).
+which is what makes the batched solve one matmul per step).
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ Everything is pure jnp and differentiable w.r.t. (J, D, S) so GAN gradients
 flow to the circuit parameters — this is the role the reference needed Theano
 for.
 
-TPU notes: the builder produces a dense (..., 2N, 2N) matrix in one shot from
+The builder produces a dense (..., 2N, 2N) matrix in one shot from
 broadcasted (2N, 2N) block masks — no Python loops over blocks; XLA fuses the
 whole thing into a couple of elementwise kernels.
 """

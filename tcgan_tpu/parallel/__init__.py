@@ -1,8 +1,8 @@
-"""ICI-mesh sharding for sample-parallel (and optional tensor-parallel)
+"""Device-mesh sharding for sample-parallel (and optional tensor-parallel)
 execution.
 
 No reference analog: the reference is single-process OpenMP/BLAS
-(SURVEY.md §2 parallelism census). This is the TPU-native replacement:
+(SURVEY.md §2 parallelism census). This is its replacement:
 `jax.sharding.Mesh` + jit shardings; XLA inserts the collectives (psum for
 sharded reductions, all-gathers where layouts demand).
 """

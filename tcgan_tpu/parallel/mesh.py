@@ -5,12 +5,14 @@ Parallelism layout ([BASELINE] config C5; SURVEY.md §2 parallelism census):
 - **Sample/data parallel (primary)**: the generator's circuit-sample batch
   axis shards over the ``"batch"`` mesh axis. Every sampled circuit's SSN
   solve is independent, so the only collectives are the loss/grad psums jit
-  inserts for the shared (replicated) generator/critic parameters — these
-  ride ICI.
+  inserts for the shared (replicated) generator/critic parameters (NCCL
+  all-reduces over NVLink between GPUs).
 - **Tensor parallel (optional, large-N)**: the 2N neuron axis of W shards
   over the ``"model"`` mesh axis; the solver's ``r @ W^T`` contraction then
-  reduce-scatters over ICI. Enabled by giving the mesh a model axis of
-  size > 1.
+  reduce-scatters. Enabled by giving the mesh a model axis of size > 1.
+
+The GPUs of one host are joined all to all, so the mesh shape follows the
+algorithm alone (no torus to match).
 
 Implementation style: jit automatic partitioning steered by sharding
 constraints on the quenched noise z (batch axis) and W (model axis) inside

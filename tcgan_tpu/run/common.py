@@ -13,6 +13,7 @@ line-verified (empty reference mount — SURVEY.md provenance notice).
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
@@ -67,39 +68,30 @@ def add_ssn_flags(p: argparse.ArgumentParser):
     g.add_argument("--solver-backend", choices=("xla", "pallas"),
                    default="xla",
                    help="fixed-point forward: lockstep XLA while_loop vs "
-                        "fused Pallas kernel (TPU)")
+                        "fused Pallas kernel (NVIDIA GPU, one device, "
+                        "N <= 64)")
     g.add_argument("--check-every", type=int, default=32,
-                   help="convergence-check stride (Euler steps). Default "
-                        "32 is the measured optimum on the v5e chip "
-                        "(kernel_probe_results.json: 312k solves/s vs "
-                        "296k at 16, 284k at 128 — fewer reductions, at "
-                        "most a stride of overshoot iterations); the "
+                   help="convergence-check stride (Euler steps); the "
                         "solve returns the SAME fixed points at the same "
-                        "atol, only the stop check is strided. Use 1 to "
+                        "atol, only the stop check is strided (at most a "
+                        "stride of overshoot iterations). The default of "
+                        "32 is not yet measured on the H100. Use 1 to "
                         "reproduce runs recorded before round 4c.")
-    g.add_argument("--pallas-block-b", type=int, default=16,
-                   help="circuits per Pallas kernel tile. Default 16 is "
-                        "the measured optimum on the v5e chip "
-                        "(kernel_probe_results.json: 313k solves/s vs "
-                        "272k at 8, 293k at 32); on-device kernel-vs-XLA "
-                        "parity at this tiling is gated every bench run "
-                        "(bench.py _parity).")
     g.add_argument("--pallas-two-phase", choices=("on", "off"), default="on",
-                   help="fast-pass first loop + HIGHEST-precision tail")
+                   help="TF32 first loop + f32-accurate tail")
     g.add_argument("--pallas-refine", choices=("on", "off"), default="on",
-                   help="iterative-refinement tail (DEFAULT-precision "
-                        "correction steps around a HIGHEST anchor)")
+                   help="iterative-refinement tail (TF32 correction steps "
+                        "around an f32 anchor)")
     g.add_argument("--pallas-reopen-margin", type=float, default=0.0,
                    help="phase-2 divergence-reopen margin: rows whose "
                         "phase-1 rates are pinned above MARGIN * "
                         "rate-stop-at stay flagged through the "
-                        "full-precision tail instead of re-proving their "
-                        "divergence (saves up to ~2.4x per step on "
-                        "divergence-heavy batches; BASELINE.md round-5 "
-                        "wgan_step root cause). 0 = reopen all (round-3/4 "
-                        "behavior); 2.0 is the validated setting — bf16 "
-                        "peak-test noise is a few per cent at the "
-                        "threshold, never 2x")
+                        "f32 tail instead of re-proving their "
+                        "divergence on divergence-heavy batches. 0 = "
+                        "reopen all. 2.0 is safe: the TF32 peak-test "
+                        "noise is well under a per cent at the threshold, "
+                        "never 2x (chip_smoke.py checks flag parity with "
+                        "the XLA path on a divergence-heavy batch)")
     g.add_argument("--init", choices=("zero", "feedforward"), default="zero",
                    help="fixed-point initial rates: zeros (reference) or "
                         "the feedforward estimate f(I)")
@@ -365,27 +357,27 @@ def add_data_flags(p: argparse.ArgumentParser):
                         "batteries; see BASELINE.md battery design)")
 
 
-def enable_compile_cache():
-    """Persistent XLA compile cache for the CLI entry points, TPU only.
+REPO_ROOT = Path(__file__).resolve().parents[2]
+COMPILE_CACHE_DIR = REPO_ROOT / ".jax_cache"
 
-    TPU compiles go through a remote helper and can take minutes cold;
-    the on-disk cache makes resumed/repeated runs start in seconds. NOT
-    enabled off-TPU: CPU AOT cache entries synced from another host can
-    carry machine-feature mismatches (potential SIGILL) — the hazard
-    __graft_entry__.dryrun_multichip documents."""
-    import pathlib
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compile cache, on every backend, and
+    return its directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    no directory is set here. Otherwise the cache goes to the fixed path
+    ``<repo>/.jax_cache`` (listed in .gitignore): the path is part of the
+    cache key, so a directory that moved would never hit. Call it before
+    the process compiles anything — JAX decides once per process whether
+    the cache is in use."""
+    import os
 
     import jax
 
-    try:
-        if jax.default_backend() != "tpu":
-            return
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            str(pathlib.Path(__file__).resolve().parents[2] / ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # cache is an optimization, never a failure
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", str(COMPILE_CACHE_DIR))
+    return jax.config.jax_compilation_cache_dir
 
 
 def explicit_dests(parser: argparse.ArgumentParser, argv) -> set:
@@ -569,7 +561,6 @@ def ssn_config_from_args(args) -> SSNConfig:
         smoothness=args.smoothness, max_iter=args.max_iter, atol=args.atol,
         rate_stop_at=args.rate_stop_at, seqlen=args.seqlen,
         backend=args.solver_backend, check_every=args.check_every,
-        pallas_block_b=args.pallas_block_b,
         pallas_two_phase=(args.pallas_two_phase == "on"),
         pallas_refine=(args.pallas_refine == "on"),
         pallas_reopen_margin=getattr(args, "pallas_reopen_margin", 0.0),

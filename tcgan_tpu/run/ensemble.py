@@ -11,7 +11,7 @@ robustness checks cost roughly one fit's wall-clock. Usage::
 Artifacts: ``ensemble.csv`` (per-member learning + parameter trajectory),
 ``ensemble_params.npz`` (final stacked J/D/S [+ EMA]),
 ``ensemble_summary.json`` (across-member mean/std + per-member recovery
-errors when truth is known), orbax checkpoints of the stacked state.
+errors when truth is known), NumPy checkpoints of the stacked state.
 """
 
 from __future__ import annotations

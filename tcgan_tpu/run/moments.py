@@ -1,4 +1,4 @@
-"""C5: moment-matching fit (optionally sample-parallel over the ICI mesh).
+"""C5: moment-matching fit (optionally sample-parallel over a device mesh).
 
 Reference parity: ``tc_gan/run/bptt_moments.py`` +
 ``tc_gan/networks/moment_matching.py`` (SURVEY.md §3.5, [BASELINE] config

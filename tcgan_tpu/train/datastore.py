@@ -45,7 +45,7 @@ def _git_revision(repo_root: Path) -> str:
 
 def _library_versions() -> Dict[str, str]:
     versions = {"python": sys.version.split()[0]}
-    for mod in ("jax", "jaxlib", "numpy", "optax", "flax", "orbax.checkpoint"):
+    for mod in ("jax", "jaxlib", "numpy", "optax"):
         try:
             m = __import__(mod)
             versions[mod] = getattr(m, "__version__", "unknown")

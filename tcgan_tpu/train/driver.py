@@ -12,7 +12,7 @@ driver", §3.1, §5.3):
   exceeds ``divergence_abort`` for ``divergence_patience`` consecutive
   steps the run aborts with PervasiveDivergenceError (the reference's
   KnownError semantics);
-- periodic orbax checkpoints (full state, resumable) + mean-TC snapshots.
+- periodic NumPy checkpoints (full state, resumable) + mean-TC snapshots.
 """
 
 from __future__ import annotations
@@ -49,9 +49,8 @@ class _GracefulStop:
     that the drivers check at step boundaries, then checkpoint the last
     COMPLETED step and finalize the datastore as "interrupted" (resumable
     with zero lost steps) instead of dying mid-step with everything since
-    the last periodic checkpoint lost. TPU pool preemptions and the
-    orchestration scripts (docs/artifacts/flagship_env.sh) both deliver
-    SIGTERM. A second signal while the flag is already set falls through
+    the last periodic checkpoint lost. Batch schedulers' preemptions
+    deliver SIGTERM. A second signal while the flag is already set falls through
     to the previous handler (default: kill) so a hung save can still be
     stopped. No-op off the main thread (signal.signal raises there)."""
 
@@ -147,7 +146,7 @@ class GANDriver:
         self._iter_ema = None  # EMA of healthy-step mean iters (see _adapt)
         self._capped_unhealthy = 0  # escape-valve streak (see _adapt)
         self._orig_max_iter = int(model_cfg.gen.ssn.max_iter)
-        # Adaptive-budget state survives resume via a sidecar (the orbax
+        # Adaptive-budget state survives resume via a sidecar (the
         # checkpoint holds model state only): without it a resumed run
         # restarts at the original uncapped budget with a disarmed EMA —
         # absent exactly during the divergence outbreaks it exists for.
@@ -219,7 +218,7 @@ class GANDriver:
     def _export_params(self, step: int):
         """Plain .npz snapshot of critic params + generator values — the
         reference's lasagne `.npz` critic dumps (SURVEY.md §5.4), readable
-        without orbax/jax."""
+        without jax."""
         values = gen_lib.param_values(self.model_cfg.gen, self.state.gen_params)
         extra = {}
         if getattr(self.state, "ema_params", None) is not None:

@@ -209,8 +209,8 @@ def test_adaptive_budget_escape_valve_and_sidecar(tmp_path):
     """(1) Escape valve: when the cap itself keeps frac_converged < 0.9
     (an absorbing state — the EMA gate would never fire again), 50
     sustained unhealthy capped steps raise the EMA one bucket. (2) The
-    adaptive state survives resume via the sidecar file (orbax holds
-    model state only)."""
+    adaptive state survives resume via the sidecar file (the checkpoint
+    holds model state only)."""
     from tests.test_wgan import small_gen_cfg
 
     gen = small_gen_cfg(ssn=SSNConfig(N=6, max_iter=8192))
@@ -251,8 +251,7 @@ def test_graceful_stop_on_sigterm(tmp_path):
     """SIGTERM mid-run: the driver finishes the current step, checkpoints
     the COMPLETED step, finalizes the datastore as "interrupted" (not
     "crashed"), and a resume continues with zero lost steps — the
-    preemption-safe semantics TPU-pool stops and the orchestration
-    scripts (docs/artifacts/flagship_env.sh) rely on."""
+    preemption-safe semantics a scheduler's SIGTERM relies on."""
     import json
     import os
     import signal
@@ -343,3 +342,57 @@ def test_checkpoint_forward_compat_added_fields(tmp_path):
     with _pytest.raises(ValueError, match="TrainState structure"):
         mgr.restore(Shrunk(gen_params={"J": np.zeros((2, 2))}))
     mgr.close()
+
+
+def test_checkpoint_keeps_newest_and_refuses_orbax_dirs(tmp_path):
+    """max_to_keep prunes the oldest files, no temp file survives a save,
+    non-numpy dtypes (bfloat16) round-trip, and a directory holding only
+    checkpoints of the earlier orbax format says so instead of silently
+    starting over."""
+    from tcgan_tpu.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(tmp_path / "ckpt", max_to_keep=2)
+    for s in (1, 2, 3):
+        mgr.save(s, {"a": np.full(3, float(s)),
+                     "b": jnp.full((2,), s, jnp.bfloat16)})
+    assert mgr.steps() == [2, 3] and mgr.latest_step() == 3
+    assert not list((tmp_path / "ckpt").glob("*.tmp"))
+    r = mgr.restore({"a": np.zeros(3), "b": jnp.zeros((2,), jnp.bfloat16)})
+    np.testing.assert_array_equal(r["a"], 3.0)
+    assert r["b"].dtype == jnp.bfloat16 and float(r["b"][0]) == 3.0
+
+    old = tmp_path / "old"
+    (old / "100" / "default").mkdir(parents=True)
+    with pytest.raises(RuntimeError, match="orbax"):
+        CheckpointManager(old).latest_step()
+
+
+def test_checkpoint_load_tree_without_template(tmp_path):
+    """load_tree reads a checkpoint back as nested dicts keyed by field
+    name, dict key and sequence index, with no state to restore into."""
+    from typing import Any, NamedTuple
+
+    from tcgan_tpu.train.checkpoint import CheckpointManager
+
+    class State(NamedTuple):
+        gen_params: Any
+        critic_params: Any
+        opt: Any
+        step: Any
+
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    mgr.save(4, State(gen_params={"J": np.full((2, 2), 0.5)},
+                      critic_params={"w0": np.ones((3, 2)), "b0": np.zeros(2)},
+                      opt=(np.arange(3.0), [np.asarray(2)]),
+                      step=np.asarray(4)))
+    mgr.save(9, State(gen_params={"J": np.full((2, 2), 0.9)},
+                      critic_params={}, opt=(), step=np.asarray(9)))
+    tree = mgr.load_tree(4)
+    np.testing.assert_array_equal(tree["gen_params"]["J"], 0.5)
+    assert sorted(tree["critic_params"]) == ["b0", "w0"]
+    np.testing.assert_array_equal(tree["opt"][0], np.arange(3.0))
+    assert int(tree["opt"][1][0]) == 2 and int(tree["step"]) == 4
+    # the latest by default
+    np.testing.assert_array_equal(mgr.load_tree()["gen_params"]["J"], 0.9)
+    with pytest.raises(FileNotFoundError):
+        CheckpointManager(tmp_path / "empty").load_tree()

@@ -350,7 +350,7 @@ def test_mm_ensemble_sigterm_still_writes_summary(tmp_path):
     """Preemption safety: a SIGTERM mid-run (queue `timeout`, pool
     preemption) must still produce ensemble_summary.json/params.npz with
     status "interrupted" — the queue's post-processing chain depends on
-    the summary existing (docs/artifacts/tpu_queue.sh)."""
+    the summary existing."""
     import signal
     import threading
 

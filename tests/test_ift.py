@@ -99,7 +99,7 @@ def test_iterative_matches_numpy_exact_ift():
 
 
 def test_direct_method_f32():
-    """The batched-dense 'direct' backward (TPU-supported, f32) agrees with
+    """The batched-dense 'direct' backward (f32) agrees with
     the iterative adjoint to f32 tolerance."""
     x64_x, x64_z, x64_I = _setup()
     x, z, I = (a.astype(jnp.float32) for a in (x64_x, x64_z, x64_I))
